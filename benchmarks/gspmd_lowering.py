@@ -4,7 +4,7 @@ Compiles one sharded bucket_grid step on the 8-virtual-device CPU mesh at a
 realistically-proportioned grid and reports, per collective kind, the op
 count and total bytes moved per step. The headline claim (see
 parallel/gspmd.py and the matching test in tests/test_parallel.py): neighbor
-rolls lower to one-slab collective-permutes over ICI, NOT whole-grid
+rolls lower to one-slab collective-permutes, NOT whole-grid
 all-gathers. The residual all-gathers are the per-particle gather-back
 (plane-sharded results repartitioned to the particle axis).
 
@@ -27,10 +27,10 @@ jax.config.update("jax_platforms", "cpu")
 
 
 def main():
-    from water_sandbox_tpu.core.params import SimConfig, SimParams
-    from water_sandbox_tpu.core.state import init_state
-    from water_sandbox_tpu.models import scenes
-    from water_sandbox_tpu.parallel import gspmd, mesh as mesh_mod
+    from water_sandbox.core.params import SimConfig, SimParams
+    from water_sandbox.core.state import init_state
+    from water_sandbox.models import scenes
+    from water_sandbox.parallel import gspmd, mesh as mesh_mod
 
     grid_dims = (64, 16, 16)
     cap = 16

@@ -1,8 +1,8 @@
 """Measure settled-state cell occupancy + step time for moving-container-256k.
 
-Drives the overflow-rescue design (VERDICT item 3): is the ~59k overflow at
-cap=24 a wall-sheet pileup that a larger capacity absorbs, or an EOS
-collapse that no capacity fixes?
+Drives the overflow-rescue design: is overflow at a given cap a wall-sheet
+pileup that a larger capacity absorbs, or an EOS collapse that no capacity
+fixes?
 
     python benchmarks/occupancy_256k.py [--steps 400]
 """
@@ -31,8 +31,8 @@ def main():
                     help="cell_capacity override")
     args = ap.parse_args()
 
-    import water_sandbox_tpu as wst
-    from water_sandbox_tpu.ops import hashing
+    import water_sandbox as wst
+    from water_sandbox.ops import hashing
 
     overrides = {"neighbor_mode": args.mode} if args.mode else {}
     if args.rescue is not None:
@@ -90,14 +90,15 @@ def main():
               flush=True)
     results.append(occupancy_hist("settled"))
 
-    # settled-state step time
-    np.asarray(sim.state.pos)
+    # settled-state step time, on the device JAX chose
+    jax.block_until_ready(sim.state)
     t0 = time.perf_counter()
     sim.run(30)
-    np.asarray(sim.state.pos)
+    jax.block_until_ready(sim.state)
     wall = time.perf_counter() - t0
     results.append({"settled_ms_per_step": round(wall / 30 * 1e3, 2),
-                    "settled_psps": round(30 * sim.cfg.n / wall, 0)})
+                    "settled_psps": round(30 * sim.cfg.n / wall, 0),
+                    "device_kind": jax.devices()[0].device_kind})
     print(json.dumps(results[-1]), flush=True)
 
     with open("benchmarks/occupancy_256k_results.json", "w") as f:

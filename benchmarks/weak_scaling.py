@@ -4,10 +4,10 @@ Runs the shard_map + ppermute domain rollout (parallel/domain.py) over
 meshes of 1/2/4/8 devices with particle count and grid length scaled
 proportionally (fixed work per device), and prints a scaling table.
 
-On this machine only a virtual CPU mesh exists, so the numbers measure
-correctness + relative scan/collective overhead, not ICI throughput; the
-same script runs unchanged on a real v5e slice (drop --cpu).
+On a virtual CPU mesh (--cpu) the numbers measure correctness and relative
+scan/collective overhead only; without --cpu it runs on the machine's GPUs.
 
+    python benchmarks/weak_scaling.py --devices 1 2 4 --per-device 4096
     python benchmarks/weak_scaling.py --cpu --devices 1 2 4 8 \
         --per-device 4096 --steps 10
 """
@@ -42,13 +42,13 @@ def main():
     import numpy as np
     from jax.sharding import Mesh
 
-    from water_sandbox_tpu.core.params import Container, SimConfig, SimParams
-    from water_sandbox_tpu.core.state import init_state
-    from water_sandbox_tpu.models.scenes import (cube_fluid,
+    from water_sandbox.core.params import Container, SimConfig, SimParams
+    from water_sandbox.core.state import init_state
+    from water_sandbox.models.scenes import (cube_fluid,
                                                  lattice_rest_density)
-    from water_sandbox_tpu.ops import hashing
-    from water_sandbox_tpu.parallel import domain
-    from water_sandbox_tpu.runtime.distributed import DistributedSimulation
+    from water_sandbox.ops import hashing
+    from water_sandbox.parallel import domain
+    from water_sandbox.runtime.distributed import DistributedSimulation
 
     rows = []
     for ndev in args.devices:

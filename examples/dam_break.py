@@ -1,7 +1,7 @@
 """Dam break end-to-end: run, tune mid-flight, export, render.
 
-    python examples/dam_break.py          # TPU if available
-    WST_FORCE_CPU=1 python examples/dam_break.py
+    python examples/dam_break.py          # the default JAX device
+    JAX_PLATFORMS=cpu python examples/dam_break.py
 """
 
 import os
@@ -9,13 +9,9 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-if os.environ.get("WST_FORCE_CPU"):
-    import jax
-    jax.config.update("jax_platforms", "cpu")
-
-import water_sandbox_tpu as wst
-from water_sandbox_tpu.io.export import TrajectoryWriter
-from water_sandbox_tpu.viz import raster, render
+import water_sandbox as wst
+from water_sandbox.io.export import TrajectoryWriter
+from water_sandbox.viz import raster, render
 
 
 def main():

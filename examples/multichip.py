@@ -1,6 +1,6 @@
 """Domain-decomposed run over a device mesh (works on a CPU mesh too):
 
-    XLA_FLAGS=--xla_force_host_platform_device_count=8 WST_FORCE_CPU=1 \
+    XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
         python examples/multichip.py
 """
 
@@ -9,15 +9,11 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-if os.environ.get("WST_FORCE_CPU"):
-    import jax
-    jax.config.update("jax_platforms", "cpu")
-
 import jax
-import water_sandbox_tpu as wst
-from water_sandbox_tpu.core.params import Container, SimConfig, SimParams
-from water_sandbox_tpu.core.state import init_state
-from water_sandbox_tpu.models import scenes
+import water_sandbox as wst
+from water_sandbox.core.params import Container, SimConfig, SimParams
+from water_sandbox.core.state import init_state
+from water_sandbox.models import scenes
 
 
 def main():

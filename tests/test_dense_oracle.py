@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from water_sandbox_tpu.core.params import KernelCoeffs, SimConfig, SimParams
-from water_sandbox_tpu.core.state import init_state
-from water_sandbox_tpu.models import scenes
-from water_sandbox_tpu.ops import dense, step as step_mod
+from water_sandbox.core.params import KernelCoeffs, SimConfig, SimParams
+from water_sandbox.core.state import init_state
+from water_sandbox.models import scenes
+from water_sandbox.ops import dense, step as step_mod
 
 
 def small_scene(dim=3, n_side=6):
@@ -97,3 +97,29 @@ def test_finite_after_many_steps():
     state = step_mod.rollout(state, params, cfg, 100)
     assert np.isfinite(np.asarray(state.pos)).all()
     assert np.isfinite(np.asarray(state.vel)).all()
+
+
+@pytest.mark.parametrize("block", [64, 96], ids=["divides", "ragged"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_blocked_oracle_matches_dense(dim, block):
+    """The row-blocked oracle (what reaches full scene widths) computes the
+    same fields as the (n, n) oracle, whether or not the block size
+    divides n."""
+    n = 320
+    rng = np.random.RandomState(dim)
+    pred = jnp.asarray((rng.rand(n, dim) - 0.5) * 2.5, jnp.float32)
+    vel = jnp.asarray(rng.randn(n, dim), jnp.float32)
+    params = SimParams.create(dim=dim)
+    coeffs = KernelCoeffs.from_radius(params.smoothing_radius, dim)
+
+    want = dense.density_pass(pred, params, coeffs)
+    got = dense.density_pass_blocked(pred, params, coeffs, block=block)
+    for g, w in zip(got, want):
+        assert g.shape == (n,)
+        np.testing.assert_allclose(g, w, rtol=1e-5)
+
+    acc_want = dense.force_pass(pred, vel, *want, params, coeffs)
+    acc_got = dense.force_pass_blocked(pred, vel, *want, params, coeffs,
+                                       block=block)
+    assert acc_got.shape == (n, dim)
+    np.testing.assert_allclose(acc_got, acc_want, rtol=1e-5, atol=1e-4)

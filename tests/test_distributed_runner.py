@@ -6,15 +6,15 @@ import jax
 import numpy as np
 import pytest
 
-from water_sandbox_tpu.runtime.distributed import DistributedSimulation
+from water_sandbox.runtime.distributed import DistributedSimulation
 
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
 def test_distributed_sim_runs_and_conserves_particles():
-    from water_sandbox_tpu.core.params import Container, SimConfig, SimParams
-    from water_sandbox_tpu.core.state import init_state
-    from water_sandbox_tpu.models import scenes
-    from water_sandbox_tpu.runtime.distributed import DistributedSimulation
+    from water_sandbox.core.params import Container, SimConfig, SimParams
+    from water_sandbox.core.state import init_state
+    from water_sandbox.models import scenes
+    from water_sandbox.runtime.distributed import DistributedSimulation
 
     pts = scenes.cube_fluid(6, 4, 4)
     params = SimParams.create(
@@ -37,7 +37,7 @@ def test_distributed_sim_runs_and_conserves_particles():
     assert sim.stats()["step"] == 8
 
     # dense-state extraction feeds the ordinary checkpoint machinery
-    from water_sandbox_tpu.runtime import checkpoint
+    from water_sandbox.runtime import checkpoint
     dense = sim.to_dense_state()
     assert dense.pos.shape == (cfg.n, 3)
     import tempfile, os as _os
@@ -50,9 +50,9 @@ def test_distributed_sim_runs_and_conserves_particles():
 
 
 def test_render_frame_and_gif(tmp_path):
-    from water_sandbox_tpu import Simulation
-    from water_sandbox_tpu.io.export import TrajectoryWriter
-    from water_sandbox_tpu.viz import render
+    from water_sandbox import Simulation
+    from water_sandbox.io.export import TrajectoryWriter
+    from water_sandbox.viz import render
 
     sim = Simulation.from_scene("mini-3d", neighbor_mode="dense")
     w = TrajectoryWriter(str(tmp_path / "t.npz"))
@@ -72,9 +72,9 @@ def test_render_frame_and_gif(tmp_path):
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
 def test_distributed_run_zero_steps_and_lost_accumulation():
-    from water_sandbox_tpu.core.params import Container, SimConfig, SimParams
-    from water_sandbox_tpu.core.state import init_state
-    from water_sandbox_tpu.models import scenes
+    from water_sandbox.core.params import Container, SimConfig, SimParams
+    from water_sandbox.core.state import init_state
+    from water_sandbox.models import scenes
 
     pts = scenes.cube_fluid(6, 4, 4)
     params = SimParams.create(

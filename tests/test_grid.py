@@ -6,11 +6,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from water_sandbox_tpu.core.params import KernelCoeffs, SimConfig, SimParams
-from water_sandbox_tpu.core.state import init_state
-from water_sandbox_tpu.models import scenes
-from water_sandbox_tpu.ops import dense, grid as grid_mod, hashing
-from water_sandbox_tpu.ops import step as step_mod
+from water_sandbox.core.params import KernelCoeffs, SimConfig, SimParams
+from water_sandbox.core.state import init_state
+from water_sandbox.models import scenes
+from water_sandbox.ops import dense, grid as grid_mod, hashing
+from water_sandbox.ops import step as step_mod
 
 
 def make_inputs(dim=3, seed=0, n=300, spread=3.0, velocity_scale=1.0):
@@ -220,8 +220,12 @@ def test_hash_run_truncation_is_counted():
 def test_grid_dims_required_for_bucket_modes():
     with pytest.raises(ValueError, match="grid_dims"):
         SimConfig(n=64, dim=3, neighbor_mode="bucket_grid")
+    # bucket_grid is the default mode, so it needs grid_dims too
     with pytest.raises(ValueError, match="grid_dims"):
-        SimConfig(n=64, dim=2, neighbor_mode="pallas", grid_dims=(8, 8, 8))
+        SimConfig(n=64, dim=3)
+    with pytest.raises(ValueError, match="grid_dims"):
+        SimConfig(n=64, dim=2, neighbor_mode="bucket_grid",
+                  grid_dims=(8, 8, 8))
     # dense and hash_grid need no grid
     SimConfig(n=64, dim=3, neighbor_mode="dense")
     SimConfig(n=64, dim=3, neighbor_mode="hash_grid")
@@ -241,22 +245,22 @@ def test_key_coords_container_frame_is_comoving():
     key_coords) — this pins the pose plumbing (center + yaw at sim time
     t), which exactness cannot catch: ANY isometric key frame gives
     correct physics, but a wrong pose would silently un-trim the
-    body-frame grid the flagship scene relies on (micro45)."""
+    body-frame grid the flagship scene relies on."""
     import dataclasses
 
     import jax.numpy as jnp
     import numpy as np
 
-    from water_sandbox_tpu.core.params import (Container, SimConfig,
+    from water_sandbox.core.params import (Container, SimConfig,
                                                SimParams)
-    from water_sandbox_tpu.ops import hashing
-    from water_sandbox_tpu.ops import integrate as integrate_mod
+    from water_sandbox.ops import hashing
+    from water_sandbox.ops import integrate as integrate_mod
 
     container = Container.create(
         center=(1.0, -0.5, 0.25), size=(4.0, 2.0, 3.0),
         velocity=(0.3, 0.0, -0.1), angular_velocity=0.7, angle=0.2)
     params = SimParams.create(dim=3, container=container)
-    cfg = SimConfig(n=8, dim=3, neighbor_mode="pallas",
+    cfg = SimConfig(n=8, dim=3, neighbor_mode="bucket_grid",
                     grid_dims=(8, 8, 8), cell_capacity=8,
                     grid_frame="container")
 

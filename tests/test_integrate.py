@@ -3,9 +3,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from water_sandbox_tpu.core.params import (Container, InteractionField,
+from water_sandbox.core.params import (Container, InteractionField,
                                            SimParams)
-from water_sandbox_tpu.ops import integrate as integ
+from water_sandbox.ops import integrate as integ
 
 
 def params3(**kw):
@@ -132,8 +132,8 @@ def test_max_speed_limiter():
     """params.max_speed clamps runaway velocities; 0 disables (default)."""
     import jax.numpy as jnp
     import numpy as np
-    from water_sandbox_tpu.core.params import SimParams
-    from water_sandbox_tpu.ops.integrate import integrate
+    from water_sandbox.core.params import SimParams
+    from water_sandbox.ops.integrate import integrate
 
     pos = jnp.zeros((3, 3))
     vel = jnp.asarray([[100.0, 0, 0], [0, 1.0, 0], [3.0, 4.0, 0]])

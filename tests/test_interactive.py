@@ -9,8 +9,8 @@ import urllib.request
 import numpy as np
 import pytest
 
-from water_sandbox_tpu.runtime import keymap
-from water_sandbox_tpu.runtime.runner import Simulation, SimPhase
+from water_sandbox.runtime import keymap
+from water_sandbox.runtime.runner import Simulation, SimPhase
 
 
 @pytest.fixture()
@@ -71,7 +71,7 @@ def test_keymap_pause_and_reset(sim):
 
 
 def test_live_frame_rendering(sim):
-    from water_sandbox_tpu.viz import live, raster
+    from water_sandbox.viz import live, raster
     sim.run(2)
     img = np.asarray(raster.density_image(sim.state, sim.params, 40, 12))
     txt = live.render_frame(img, color=False)
@@ -82,7 +82,7 @@ def test_live_frame_rendering(sim):
 
 def test_live_loop_headless(sim, monkeypatch):
     """Drive run_live with a stubbed terminal feeding keys."""
-    from water_sandbox_tpu.viz import live
+    from water_sandbox.viz import live
 
     keys = iter([["w"], [" "], []])
 
@@ -107,7 +107,7 @@ def test_live_loop_headless(sim, monkeypatch):
 
 
 def test_viewer_server_roundtrip(sim):
-    from water_sandbox_tpu.viz.server import ViewerServer
+    from water_sandbox.viz.server import ViewerServer
 
     sim.run(1)     # warm the 1-step program + stats reductions outside the
     sim.stats()    # server loop so polling below isn't racing the compiler
@@ -171,9 +171,9 @@ def test_viewer_server_roundtrip(sim):
 
 
 def test_viewer_server_raster_mode(sim):
-    """Raster streaming (VERDICT r2 item 7): the 100k+ path ships an
+    """Raster streaming: the 100k+ path ships an
     on-device density/speed raster instead of a point cloud."""
-    from water_sandbox_tpu.viz.server import ViewerServer
+    from water_sandbox.viz.server import ViewerServer
 
     sim.run(1)
     sim.stats()

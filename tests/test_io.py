@@ -8,10 +8,10 @@ import sys
 import numpy as np
 import pytest
 
-from water_sandbox_tpu import Simulation
-from water_sandbox_tpu.io.export import TrajectoryWriter, load_trajectory
-from water_sandbox_tpu.runtime import checkpoint
-from water_sandbox_tpu.viz import raster
+from water_sandbox import Simulation
+from water_sandbox.io.export import TrajectoryWriter, load_trajectory
+from water_sandbox.runtime import checkpoint
+from water_sandbox.viz import raster
 
 
 def test_checkpoint_roundtrip(tmp_path):
@@ -66,11 +66,10 @@ def test_density_raster():
 
 def test_cli_end_to_end(tmp_path):
     env = dict(os.environ)
-    env["JAX_PLATFORMS"] = ""
-    env["WST_FORCE_CPU"] = "1"
+    env["JAX_PLATFORMS"] = "cpu"
     ck = str(tmp_path / "end.npz")
     out = subprocess.run(
-        [sys.executable, "-m", "water_sandbox_tpu.cli", "run",
+        [sys.executable, "-m", "water_sandbox.cli", "run",
          "--scene", "mini-3d", "--neighbor-mode", "dense", "--steps", "4",
          "--record-every", "2", "--checkpoint", ck],
         capture_output=True, text=True, env=env,
@@ -82,7 +81,7 @@ def test_cli_end_to_end(tmp_path):
     assert os.path.exists(ck)
 
     out2 = subprocess.run(
-        [sys.executable, "-m", "water_sandbox_tpu.cli", "resume",
+        [sys.executable, "-m", "water_sandbox.cli", "resume",
          "--checkpoint", ck, "--steps", "2"],
         capture_output=True, text=True, env=env,
         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -90,3 +89,35 @@ def test_cli_end_to_end(tmp_path):
     stats2 = json.loads(
         [l for l in out2.stdout.splitlines() if l.startswith("{")][0])
     assert stats2["step"] == 6
+
+
+def test_checkpoint_from_before_kernel_removal_loads(tmp_path):
+    """A checkpoint whose config names the removed kernel options (and the
+    removed 'pallas' mode) loads onto the bucket_grid pipeline: those were
+    layout choices, not physics."""
+    sim = Simulation.from_scene("mini-3d", neighbor_mode="dense")
+    path = str(tmp_path / "old.npz")
+    checkpoint.save(path, sim.state, sim.params, sim.cfg)
+    data = dict(np.load(path))
+    cfg = json.loads(str(data["config_json"]))
+    cfg.update(neighbor_mode="pallas", grid_dims=[20, 16, 16],
+               incremental_rebuild=0, mover_capacity=0, sorted_state=True,
+               tile_override=1024, build_scatter="stack", density_gate=[],
+               force_gate=[], dma_prefetch=True, flush_gated=True)
+    data["config_json"] = np.asarray(json.dumps(cfg))
+    np.savez_compressed(path, **data)
+
+    state, params, cfg2 = checkpoint.load(path)
+    assert cfg2.neighbor_mode == "bucket_grid"
+    assert cfg2.grid_dims == (20, 16, 16)
+    assert not hasattr(cfg2, "sorted_state")
+    np.testing.assert_array_equal(np.asarray(state.pos),
+                                  np.asarray(sim.state.pos))
+    Simulation(cfg2, params, state).run(1)
+
+
+@pytest.mark.parametrize("mode", ["pallas", "auto"])
+def test_removed_neighbor_modes_are_refused(mode):
+    from water_sandbox.core.params import SimConfig
+    with pytest.raises(ValueError, match="bucket_grid"):
+        SimConfig(n=64, dim=3, neighbor_mode=mode, grid_dims=(8, 8, 8))

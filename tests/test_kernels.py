@@ -8,8 +8,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from water_sandbox_tpu.core.params import KernelCoeffs
-from water_sandbox_tpu.ops import kernels
+from water_sandbox.core.params import KernelCoeffs
+from water_sandbox.ops import kernels
 
 
 H = 0.25

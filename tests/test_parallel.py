@@ -6,11 +6,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from water_sandbox_tpu.core.params import SimConfig, SimParams
-from water_sandbox_tpu.core.state import init_state
-from water_sandbox_tpu.models import scenes
-from water_sandbox_tpu.ops import step as step_mod
-from water_sandbox_tpu.parallel import gspmd, mesh as mesh_mod
+from water_sandbox.core.params import SimConfig, SimParams
+from water_sandbox.core.state import init_state
+from water_sandbox.models import scenes
+from water_sandbox.ops import step as step_mod
+from water_sandbox.parallel import gspmd, mesh as mesh_mod
 
 
 pytestmark = pytest.mark.skipif(

@@ -1,6 +1,6 @@
 """Overflow-rescue exactness: a scene forced to overflow its cell buckets
-must still match the dense O(N²) oracle everywhere (VERDICT r1 item 3 —
-'complete physics can't drop particles')."""
+must still match the dense O(N²) oracle everywhere — complete physics
+cannot drop particles."""
 
 import dataclasses
 
@@ -8,10 +8,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from water_sandbox_tpu.core.params import KernelCoeffs, SimConfig, SimParams
-from water_sandbox_tpu.models.scenes import cube_fluid
-from water_sandbox_tpu.ops import dense, grid, step as step_mod
-from water_sandbox_tpu.core.state import init_state
+from water_sandbox.core.params import KernelCoeffs, SimConfig, SimParams
+from water_sandbox.models.scenes import cube_fluid
+from water_sandbox.ops import dense, grid, step as step_mod
+from water_sandbox.core.state import init_state
 
 
 @pytest.fixture(scope="module")
@@ -85,22 +85,6 @@ def test_rescue_budget_exceeded_is_counted(crowded):
     assert dmax < 2 * d0max + 100.0
 
 
-def test_pallas_rescue_matches_dense_oracle(crowded):
-    from water_sandbox_tpu.ops.pallas import sph_bucket
-
-    state, params = crowded
-    cfg = SimConfig(n=state.n, dim=2, neighbor_mode="pallas",
-                    grid_dims=(12, 12), cell_capacity=8,
-                    rescue_capacity=512, chunk=128)
-    coeffs = KernelCoeffs.from_radius(params.smoothing_radius, cfg.dim)
-    den, nden, prs, nprs, acc, unrescued = sph_bucket.bucket_sph(
-        state.predicted, state.vel, params, coeffs, cfg, interpret=True)
-    assert int(unrescued) == 0
-    dden, dnden, dprs, dnprs, dacc = _dense_fields(state, params, cfg)
-    np.testing.assert_allclose(den, dden, rtol=2e-5, atol=2e-5)
-    np.testing.assert_allclose(acc, dacc, rtol=2e-4, atol=2e-3)
-
-
 def test_no_overflow_means_no_rescue_cost_difference(crowded):
     """With ample capacity the cond must take the cheap branch and results
     must equal the rescue-disabled pipeline exactly."""
@@ -113,3 +97,45 @@ def test_no_overflow_means_no_rescue_cost_difference(crowded):
     assert int(a[-1]) == 0 and int(b[-1]) == 0
     for x, y in zip(a[:-1], b[:-1]):
         np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+
+
+@pytest.mark.parametrize("grid_frame", ["world", "container"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_rescue_matches_dense_oracle_in_key_frames(dim, grid_frame):
+    """Forced overflow through bucket_grid, in both key frames (the
+    container frame with a translating+yawing box at t != 0): the rescue
+    keeps every field on the dense oracle."""
+    from water_sandbox.core.params import Container
+
+    nk = 8 if dim == 3 else None
+    pts = cube_fluid(12 if dim == 2 else 8, 8, nk, particle_radius=0.04)
+    rng = np.random.RandomState(dim)
+    pred = jnp.asarray(np.asarray(pts) + rng.randn(*pts.shape) * 0.01,
+                       jnp.float32)
+    vel = jnp.asarray(rng.randn(*pts.shape), jnp.float32)
+    container = Container.create(
+        center=(0.1,) * dim, size=(3.0,) * dim,
+        velocity=(0.4,) + (0.0,) * (dim - 1), angular_velocity=0.5,
+        angle=0.2)
+    params = SimParams.create(dim=dim, container=container)
+    n = pred.shape[0]
+    cfg = SimConfig(n=n, dim=dim, neighbor_mode="bucket_grid",
+                    grid_dims=(12,) * dim, cell_capacity=4,
+                    rescue_capacity=n, chunk=128, grid_frame=grid_frame)
+    coeffs = KernelCoeffs.from_radius(params.smoothing_radius, dim)
+    t = jnp.asarray(1.3, jnp.float32)
+
+    *_, raw_overflow = grid.bucket_sph(
+        pred, vel, params, coeffs,
+        dataclasses.replace(cfg, rescue_capacity=0), time=t)
+    assert int(raw_overflow) > 0, "test cloud must force overflow"
+    den, nden, prs, nprs, acc, unrescued = grid.bucket_sph(
+        pred, vel, params, coeffs, cfg, time=t)
+    assert int(unrescued) == 0
+
+    dden, dnden, dprs, dnprs = dense.density_pass(pred, params, coeffs)
+    dacc = dense.force_pass(pred, vel, dden, dnden, dprs, dnprs, params,
+                            coeffs)
+    np.testing.assert_allclose(den, dden, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(nden, dnden, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(acc, dacc, rtol=2e-4, atol=2e-3)

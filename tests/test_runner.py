@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from water_sandbox_tpu import Simulation, scenes
-from water_sandbox_tpu.runtime.runner import SimPhase
+from water_sandbox import Simulation, scenes
+from water_sandbox.runtime.runner import SimPhase
 
 
 def mini():
@@ -83,7 +83,7 @@ def test_stats_and_metrics():
 
 
 def test_metrics_exclude_compile_windows():
-    """Rates come from WARM windows only (VERDICT r3 weak #7): a window
+    """Rates come from WARM windows only: a window
     that compiled a new rollout program is recorded as warm-up."""
     sim = mini()
     sim.run(5)
@@ -104,3 +104,30 @@ def test_snapshot_shapes():
     snap = sim.snapshot()
     assert snap["pos"].shape == (512, 3)
     assert snap["density"].shape == (512,)
+
+
+# (scene, axis) pairs whose grid deliberately spans the fluid's depth, not
+# the box's height: the flagship's body-frame grid is 32 cells (8 m) tall in
+# a 10 m box, since its 4.8 m pool never rises that far (a particle that
+# did would clamp into the top cells — exact, only slower)
+_DEPTH_TRIMMED = {("moving-container-256k", 1)}
+
+
+@pytest.mark.parametrize("name", scenes.names())
+def test_scene_builds_and_grid_covers_container(name):
+    """Every registered scene builds a consistent (cfg, params, state) on
+    the production pipeline, and its grid spans its container (in the body
+    frame for container-frame scenes) with a cell to spare for the dynamic
+    anchor and the prediction lookahead."""
+    cfg, params, state = scenes.build(name)
+    assert cfg.neighbor_mode == "bucket_grid"
+    assert state.pos.shape == (cfg.n, cfg.dim)
+    assert params.dim == cfg.dim
+    h = float(params.smoothing_radius)
+    size = 2.0 * np.asarray(params.container.half_size)
+    pos = np.asarray(state.pos) - np.asarray(params.container.center)
+    for a, cells in enumerate(cfg.grid_dims):
+        need = size[a]
+        if (name, a) in _DEPTH_TRIMMED:
+            need = pos[:, a].max() + size[a] / 2 + 2 * h
+        assert cells * h >= need + 2 * h, (a, cells, need)
